@@ -12,7 +12,7 @@ Delta vs the reference (documented): the IC is the analytic profile itself
 (DensityFunction:type BondiProfile) rather than a homogeneous state, so the
 run tests that the scheme HOLDS the analytic solution.
 
-Usage: PYTHONPATH=/root/repo python benchmarks/run_bondi.py [small]
+Usage: PYTHONPATH=. python benchmarks/run_bondi.py [small]
 """
 
 import os

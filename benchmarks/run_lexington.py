@@ -4,7 +4,7 @@ Validates the classic HII-region structure: ~10^4 K ionized interior, sharp
 ionization front, neutral exterior at the 500 K floor, He ionization zone
 smaller than the H one.
 
-Usage: PYTHONPATH=/root/repo python benchmarks/run_lexington.py [small]
+Usage: PYTHONPATH=. python benchmarks/run_lexington.py [small]
 """
 
 import os

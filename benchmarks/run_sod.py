@@ -1,6 +1,6 @@
 """Drive: 1D Sod shock tube on the 3D hydro solver, vs the exact solution.
 
-Usage: PYTHONPATH=/root/repo [JAX_PLATFORMS=cpu] python benchmarks/run_sod.py
+Usage: PYTHONPATH=. [JAX_PLATFORMS=cpu] python benchmarks/run_sod.py
 """
 
 import os

@@ -7,7 +7,7 @@ The validation compares the ionization-front radius to the Spitzer and
 Hosokawa-Inutsuka expansion laws (Bisbas et al. 2015; the measured front
 should lie between/near them, cf. /root/reference/benchmarks/starbench.py).
 
-Usage: PYTHONPATH=/root/repo python benchmarks/run_starbench.py [small]
+Usage: PYTHONPATH=. python benchmarks/run_starbench.py [small]
   small: 32^3 grid, 1e5 photons, 512 steps (~6x faster)
 """
 

@@ -6,7 +6,7 @@ starbench on a UniformRandom Voronoi grid).  Validation compares the
 ionization-front radius to the Spitzer / Hosokawa-Inutsuka expansion laws
 with first-order-scheme tolerances.
 
-Usage: PYTHONPATH=/root/repo python benchmarks/run_starbench_voronoi.py [small]
+Usage: PYTHONPATH=. python benchmarks/run_starbench_voronoi.py [small]
 """
 
 import os

@@ -3,7 +3,7 @@
 Equivalent of the reference's CMacIonize main
 (/root/reference/src/CMacIonize.cpp:100-377): parse flags, load the
 parameter file, dispatch into a run mode, write snapshots.  The reference's
-`--task-based` flags select its second-generation scheduler; on TPU both
+`--task-based` flags select its second-generation scheduler; here both
 generations map onto the same bulk-synchronous implementation, so the flags
 are accepted and simply logged.
 
@@ -39,6 +39,17 @@ def _write_snapshot(params, geometry, fields, time_value, log):
     write_gadget_snapshot(name, geometry, fields, time_value, params=params)
     log.status(f"wrote snapshot {name}")
     return name
+
+
+def _writes_gadget_snapshots(args, params) -> bool:
+    """True when the selected mode reads or writes Gadget HDF5 snapshots
+    (RHD, emissivity post-processing, ionization on a Cartesian grid)."""
+    if args.rhd or args.task_based_rhd or args.emission:
+        return True
+    if args.dusty_radiative_transfer:
+        return False
+    return params.get_string("DensityGrid:type", "Cartesian") not in (
+        "AMR", "Voronoi")
 
 
 def _parallel_config(params, n_devices_flag=0):
@@ -728,7 +739,7 @@ def _run_emission(params, log, snapshot_file):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="cmacionize-tpu",
-        description="TPU-native Monte Carlo photoionization + RHD framework",
+        description="Monte Carlo photoionization + RHD framework (JAX)",
     )
     parser.add_argument(
         "--params", "-p", default="",
@@ -737,11 +748,11 @@ def main(argv=None):
     parser.add_argument("--rhd", action="store_true", help="radiation hydro mode")
     parser.add_argument(
         "--task-based", action="store_true",
-        help="accepted for reference CLI parity (same TPU implementation)",
+        help="accepted for reference CLI parity (same implementation)",
     )
     parser.add_argument(
         "--task-based-rhd", action="store_true",
-        help="accepted for reference CLI parity (same TPU implementation)",
+        help="accepted for reference CLI parity (same implementation)",
     )
     parser.add_argument(
         "--dusty-radiative-transfer", action="store_true",
@@ -815,6 +826,15 @@ def main(argv=None):
     if args.dry:
         log.status("dry run: configuration parsed OK")
         return 0
+    import jax
+
+    devices = jax.devices()
+    log.status(f"devices: {len(devices)} x {devices[0].platform} "
+               f"({devices[0].device_kind})")
+    if _writes_gadget_snapshots(args, params):
+        from cmacionize_tpu.io.gadget import require_h5py
+
+        require_h5py()
     if args.restart and not (args.rhd or args.task_based_rhd):
         parser.error("--restart is only supported with --rhd")
     if args.rhd or args.task_based_rhd:

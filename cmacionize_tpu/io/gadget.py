@@ -21,6 +21,17 @@ import numpy as np
 from cmacionize_tpu.models.grid import GridGeometry
 
 
+def require_h5py() -> None:
+    """Fail early, naming h5py, when it cannot be imported: Gadget
+    snapshots are HDF5 files."""
+    import importlib.util
+
+    if importlib.util.find_spec("h5py") is None:
+        raise SystemExit(
+            "h5py is not installed; it is required to read and write "
+            "Gadget HDF5 snapshots")
+
+
 def write_gadget_snapshot(
     filename: str,
     geometry: GridGeometry,

@@ -4,7 +4,7 @@ Equivalent of the reference's RestartManager/RestartWriter/RestartReader
 (/root/reference/src/RestartManager.hpp:108-250): simulation state is dumped
 periodically (wall-clock cadence) so an interrupted run can resume with
 bounded loss.  Where the reference serializes every stateful C++ object into
-a raw binary stream, the TPU framework's state is already a pytree of arrays
+a raw binary stream, this framework's state is already a pytree of arrays
 plus a few scalars — checkpoints are compressed npz archives of array leaves
 + a scalar manifest, written atomically.
 """

@@ -4,7 +4,7 @@ Equivalents of the reference's DensityFunction snapshot-reader family
 (/root/reference/src/DensityFunctionFactory.hpp:138-174):
 
 - FLASH (FLASHSnapshotDensityFunction.cpp): a FLASH AMR HDF5 plot file is
-  flattened onto the finest uniform resolution — the TPU data model is a
+  flattened onto the finest uniform resolution — the array data model is a
   dense [nx,ny,nz] array, so the octree blocks are exactly upsampled
   (constant within each coarse cell) instead of kept as a tree.
 - Amun (AmunSnapshotDensityFunction.cpp): per-process files assembled into

@@ -1,4 +1,4 @@
-"""Adaptive mesh refinement grid family (TPU-native design).
+"""Adaptive mesh refinement grid family.
 
 Replaces the reference's pointer-tree AMR
 (/root/reference/src/AMRDensityGrid.hpp:44-808, AMRGrid.hpp,
@@ -19,8 +19,8 @@ Transport ("dense-expand")
 --------------------------
 Photon traversal runs on the finest uniform lattice with per-cell opacity
 ``chi[owner]`` — a single gather per iteration — reusing the existing
-blocked traversal kernels unchanged (a uniform lattice is the shape the MXU
-/ VPU want; a data-dependent tree walk is not).  Path-length tallies on the
+blocked traversal kernels unchanged (a uniform lattice is the shape vectorized
+hardware wants; a data-dependent tree walk is not).  Path-length tallies on the
 fine lattice are summed back per leaf with one ``segment_sum``.  The result
 is *exactly* the optical-depth integral through the multi-level grid: within
 a leaf the opacity is constant, so splitting its path into finest-lattice
@@ -210,7 +210,7 @@ def refinement_scheme_from_params(params):
 class AMRGrid:
     """A constructed AMR hierarchy: compact leaves + finest-lattice owner map.
 
-    TPU-native replacement for AMRGrid/AMRGridCell
+    Array-based replacement for AMRGrid/AMRGridCell
     (/root/reference/src/AMRGrid.hpp, AMRGridCell.hpp): leaves are rows of
     dense arrays, the tree walk is a gather through ``owner``.
     """
@@ -257,7 +257,7 @@ class AMRGrid:
 
         Encoding: value >= 0 → internal node id (row of ``children``);
         value < 0 → leaf with id ``-(value + 1)``.  Child octant index is
-        ``ox·4 + oy·2 + oz``.  The TPU equivalent of the reference's
+        ``ox·4 + oy·2 + oz``.  The JAX equivalent of the reference's
         AMRGridCell pointer tree (/root/reference/src/AMRGridCell.hpp),
         built once per hierarchy and cached.
         """
@@ -668,7 +668,7 @@ class MultiFreqAMRSimulation:
 
     Per iteration: expand leaf opacities to the finest lattice → spectral
     trace (+ per-packet diffuse re-emission generations) → reduce binned
-    tallies per leaf → one MXU matmul to per-ion integrals → the shared
+    tallies per leaf → one matmul to per-ion integrals → the shared
     per-cell solve (solve_cell_state) on the compact [C] arrays.
     """
 
@@ -767,7 +767,7 @@ class MultiFreqAMRSimulation:
             name: jnp.asarray(arrays[f"xion_{name}"], jnp.float64)
             for name in _ions.ION_NAMES
         }
-        self.key = jax.random.wrap_key_data(jnp.asarray(arrays["rng_key"]))
+        self.key = jnp.asarray(arrays["rng_key"])  # raw key, as PRNGKey makes
         self.iteration = int(scalars["iteration"])
 
     def run(self, n_iterations: int, restart_manager=None):
@@ -911,13 +911,7 @@ class MultiFreqAMRSimulation:
                 jnp.asarray(self.sigma_table, jnp.float32),
                 jnp.asarray(self.heating_weights, jnp.float32), C)
 
-            from cmacionize_tpu.models.multifreq_simulation import (
-                _cpu_device,
-            )
-
-            cpu = _cpu_device()
-            integrals = jax.device_put(
-                jax.device_get(integrals), cpu).astype(jnp.float64)
+            integrals = integrals.astype(jnp.float64)
             volumes = jnp.asarray(grid.volumes, jnp.float64)
             jfac = self.luminosity / (n_total * volumes)
             hfac = jfac * constants.PLANCK
@@ -927,12 +921,9 @@ class MultiFreqAMRSimulation:
             }
             h = (integrals[ions.NUMBER_OF_IONS] * hfac,
                  integrals[ions.NUMBER_OF_IONS + 1] * hfac)
-            nd = jax.device_put(
-                jax.device_get(self.number_density), cpu)
             do_temp = self.do_temperature and self.iteration >= 3
             self.temperature, self.xion = solve_cell_state(
-                j, h, nd,
-                jax.device_put(jax.device_get(self.temperature), cpu),
+                j, h, self.number_density, self.temperature,
                 self.abundances, do_temp)
             self.iteration += 1
             if restart_manager is not None:
@@ -1033,7 +1024,7 @@ class AMRIonizationSimulation:
         self.number_density = jnp.asarray(
             self.density_fn(self.grid.centers), jnp.float32)
         self.neutral_fraction = jnp.asarray(arrays["neutral_fraction"])
-        self.key = jax.random.wrap_key_data(jnp.asarray(arrays["rng_key"]))
+        self.key = jnp.asarray(arrays["rng_key"])  # raw key, as PRNGKey makes
         self.iteration = int(scalars["iteration"])
 
     def _rebuild(self):

@@ -82,10 +82,10 @@ def block_syntax(
 
 def blocks_from_yaml(filename: str) -> List[Block]:
     """Parse a BlockSyntax YAML file (cf. benchmarks/starbench.yml)."""
-    import yaml
+    from cmacionize_tpu.utils.params import yaml_load
 
     with open(filename) as handle:
-        doc = yaml.safe_load(handle)
+        doc = yaml_load(handle.read())
     blocks = []
     for i in range(int(doc["number of blocks"])):
         entry = doc[f"block[{i}]"]
@@ -271,14 +271,14 @@ def interpolated(geometry: GridGeometry, filename: str,
     between two ``---`` lines declares num_x/y/z, axis bounds and the column
     layout; the body lists sample points; cell values are trilinear
     interpolations, with collapsed axes (num == 0) constant."""
-    import yaml
+    from cmacionize_tpu.utils.params import yaml_load
 
     with open(filename) as handle:
         text = handle.read()
     parts = text.split("---")
     if len(parts) < 3:
         raise ValueError(f"no YAML header block in {filename!r}")
-    header = yaml.safe_load(parts[1])
+    header = yaml_load(parts[1])
     body = parts[2]
 
     nums = {a: int(header[f"num_{a}"]) for a in "xyz"}

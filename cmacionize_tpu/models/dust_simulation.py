@@ -9,7 +9,7 @@ CCD accumulates the surface-brightness image via the peel-off technique
 (every emission/scattering event contributes weight × phase(θ_obs) ×
 exp(-τ_to_observer) to its projected pixel).
 
-TPU-native design: emission, Henyey-Greenstein scattering, and the peel-off
+Design: emission, Henyey-Greenstein scattering, and the peel-off
 optical-depth integration all run as whole-batch array passes — the peel-off
 τ integration reuses the traversal kernel in "propagate" mode (zero-weight
 packets accumulate optical depth without tallies,
@@ -283,8 +283,8 @@ class DustSimulation:
         pos_si = anchor + gpos * cell
         e1 = jnp.asarray(self._e1, jnp.float32)
         e2 = jnp.asarray(self._e2, jnp.float32)
-        u = pos_si @ e1
-        v = pos_si @ e2
+        u = jnp.dot(pos_si, e1, precision=jax.lax.Precision.HIGHEST)
+        v = jnp.dot(pos_si, e2, precision=jax.lax.Precision.HIGHEST)
         a = self._ccd_anchor
         s = self._ccd_sides
         px = jnp.clip(

@@ -1,6 +1,6 @@
 """Grid geometry and cell state.
 
-TPU-native replacement for the reference's DensityGrid / DensitySubGrid cell
+Array-based replacement for the reference's DensityGrid / DensitySubGrid cell
 storage (/root/reference/src/DensityGrid.hpp:63,
 /root/reference/src/IonizationVariables.hpp:84-118): instead of an
 array-of-structs of per-cell `IonizationVariables`, the cell state is a

@@ -6,7 +6,7 @@ ionizable states; the highest ionization state of each element is implicit
 (1 - sum of tracked fractions for that element's lower states... for H/He the
 tracked fraction is the *neutral* fraction).
 
-On TPU the ion set is a static configuration: arrays carry a leading ion axis
+Here the ion set is a static configuration: arrays carry a leading ion axis
 of length ``len(ion_names)`` and XLA specializes per configuration, replacing
 the reference's #ifdef-based compile-time composition.
 

@@ -7,7 +7,7 @@ HeliumLymanContinuumSpectrum.cpp, HeliumTwoPhotonContinuumSpectrum.cpp):
 an absorbed photon packet is re-emitted with a channel-dependent new
 frequency (Wood, Mathis & Ercolano 2004, §3.3).
 
-TPU-native design: the reference draws per-photon uniforms and walks a
+Design: the reference draws per-photon uniforms and walks a
 cumulative channel table per absorption event inside a task; here the whole
 absorbed batch is re-emitted in one vectorized pass — channel selection is a
 chain of `where` masks, frequency sampling is inverse-CDF interpolation into

@@ -1,6 +1,6 @@
 """Time-dependent photon source distributions.
 
-TPU-native equivalents of the reference's evolving PhotonSourceDistribution
+JAX equivalents of the reference's evolving PhotonSourceDistribution
 family (/root/reference/src/PhotonSourceDistributionFactory.hpp:106-128):
 
 - SILCCSourceDistribution   (SILCCPhotonSourceDistribution.hpp) — static

@@ -208,7 +208,7 @@ class DiscreteSourceSet:
     (AsciiFile/UniformRandom/..., factory at
     /root/reference/src/PhotonSourceDistributionFactory.hpp:106-128): the
     emitting source of each packet is sampled proportionally to luminosity,
-    the TPU-native equivalent of the reference's per-source photon-count
+    the JAX equivalent of the reference's per-source photon-count
     split (PhotonSource.cpp:120-180).
     """
 

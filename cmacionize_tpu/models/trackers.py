@@ -6,7 +6,7 @@ trackers placed by a TrackerManager from a YAML file — and the
 LiveOutputManager's surface-density / PDF reductions,
 /root/reference/src/LiveOutputManager.hpp:29-56).
 
-TPU-native design: the reference hooks a per-cell pointer into the tally hot
+Design: the reference hooks a per-cell pointer into the tally hot
 loop (/root/reference/src/DensitySubGrid.hpp:614-617); here the spectral
 traversal already produces frequency-binned per-cell tallies, so a
 "tracker" is just a gather of tracked-cell columns accumulated across
@@ -62,12 +62,11 @@ class TrackerManager:
     def from_yaml(cls, geometry, filename, bin_edges):
         """Load tracker positions from a YAML file: a `positions:` list of
         unit-bearing coordinate triples (TrackerManager equivalent)."""
-        import yaml
-
+        from cmacionize_tpu.utils.params import yaml_load
         from cmacionize_tpu.utils.units import parse_quantity
 
         with open(filename) as handle:
-            doc = yaml.safe_load(handle)
+            doc = yaml_load(handle.read())
         positions = [
             tuple(parse_quantity(component, "length") for component in entry)
             for entry in doc["positions"]
@@ -100,7 +99,7 @@ class TrackerManager:
 #
 # The reference hooks a per-cell Tracker pointer into the tally hot loop and
 # dispatches virtually per crossing (/root/reference/src/DensitySubGrid.hpp
-# :614-617).  TPU-native design: packets fly STRAIGHT between emission and
+# :614-617).  Design: packets fly STRAIGHT between emission and
 # termination within each generation (primary batch, then one batch per
 # re-emission generation), so every tracked-cell crossing is recoverable
 # after the trace from the segment (origin → final position) alone — a
@@ -258,7 +257,8 @@ class CellTrackers:
                                   self._lo, self._hi)  # [nT, P]
         crossed = (ov > 0.0) & valid[None, :]
         # per-tracker reference-direction filter (SpectrumTracker.hpp:162)
-        dots = jnp.einsum("td,pd->tp", self._refdir, direction)
+        dots = jnp.einsum("td,pd->tp", self._refdir, direction,
+                          precision=jax.lax.Precision.HIGHEST)
         crossed = crossed & (dots >= self._cosang[:, None])
 
         n_slots = len(TRACKER_SLOTS)

@@ -1,4 +1,4 @@
-"""Voronoi grid family (TPU-native design).
+"""Voronoi grid family.
 
 Replaces the reference's two incremental-construction Voronoi grids
 (/root/reference/src/OldVoronoiCell.cpp ~2000 LoC cell clipping,
@@ -48,6 +48,9 @@ __all__ = [
     "VoronoiPacketBatch",
     "HOnlyVoronoiSimulation",
 ]
+
+#: f32 contractions run at full f32 precision (never TF32 on GPUs)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +492,8 @@ def _trace_voronoi_jit(
         rows_off = offsets[pk.cell]  # [P, K]
         rows_shift = shifts[pk.cell]  # [P, K, 3]
 
-        ndotd = jnp.einsum("pkc,pc->pk", rows_n, pk.dirn)
-        ndotp = jnp.einsum("pkc,pc->pk", rows_n, pk.pos)
+        ndotd = jnp.einsum("pkc,pc->pk", rows_n, pk.dirn, precision=_HIGHEST)
+        ndotp = jnp.einsum("pkc,pc->pk", rows_n, pk.pos, precision=_HIGHEST)
         t = jnp.where(
             (ndotd > 1e-12) & (rows_nbr != -2),
             jnp.maximum(rows_off - ndotp, 0.0) / jnp.maximum(ndotd, 1e-12),
@@ -685,8 +688,8 @@ def _trace_voronoi_spectral_jit(
         rows_off = offsets[pk.cell]
         rows_shift = shifts[pk.cell]
 
-        ndotd = jnp.einsum("pkc,pc->pk", rows_n, pk.dirn)
-        ndotp = jnp.einsum("pkc,pc->pk", rows_n, pk.pos)
+        ndotd = jnp.einsum("pkc,pc->pk", rows_n, pk.dirn, precision=_HIGHEST)
+        ndotp = jnp.einsum("pkc,pc->pk", rows_n, pk.pos, precision=_HIGHEST)
         t = jnp.where(
             (ndotd > 1e-12) & (rows_nbr != -2),
             jnp.maximum(rows_off - ndotp, 0.0) / jnp.maximum(ndotd, 1e-12),
@@ -849,7 +852,7 @@ class MultiFreqVoronoiSimulation:
             name: jnp.asarray(arrays[f"xion_{name}"], jnp.float64)
             for name in ions.ION_NAMES
         }
-        self.key = jax.random.wrap_key_data(jnp.asarray(arrays["rng_key"]))
+        self.key = jnp.asarray(arrays["rng_key"])  # raw key, as PRNGKey makes
         self.iteration = int(scalars["iteration"])
 
     def run(self, n_iterations: int, restart_manager=None):
@@ -970,13 +973,7 @@ class MultiFreqVoronoiSimulation:
                 jnp.asarray(self.sigma_table, jnp.float32),
                 jnp.asarray(self.heating_weights, jnp.float32), C)
 
-            from cmacionize_tpu.models.multifreq_simulation import (
-                _cpu_device,
-            )
-
-            cpu = _cpu_device()
-            integrals = jax.device_put(
-                jax.device_get(integrals), cpu).astype(jnp.float64)
+            integrals = integrals.astype(jnp.float64)
             volumes = jnp.asarray(grid.volumes, jnp.float64)
             jfac = self.luminosity / (n_total * volumes)
             hfac = jfac * constants.PLANCK
@@ -986,11 +983,9 @@ class MultiFreqVoronoiSimulation:
             }
             h = (integrals[ions.NUMBER_OF_IONS] * hfac,
                  integrals[ions.NUMBER_OF_IONS + 1] * hfac)
-            nd = jax.device_put(jax.device_get(self.number_density), cpu)
             do_temp = self.do_temperature and self.iteration >= 3
             self.temperature, self.xion = solve_cell_state(
-                j, h, nd,
-                jax.device_put(jax.device_get(self.temperature), cpu),
+                j, h, self.number_density, self.temperature,
                 self.abundances, do_temp)
             self.iteration += 1
             if restart_manager is not None:
@@ -1070,7 +1065,7 @@ class HOnlyVoronoiSimulation:
         self.number_density = jnp.asarray(
             self._density_fn(gen_si), jnp.float32)
         self.neutral_fraction = jnp.asarray(arrays["neutral_fraction"])
-        self.key = jax.random.wrap_key_data(jnp.asarray(arrays["rng_key"]))
+        self.key = jnp.asarray(arrays["rng_key"])  # raw key, as PRNGKey makes
         self.iteration = int(scalars["iteration"])
 
     def run(self, n_iterations: int, restart_manager=None):

@@ -3,7 +3,7 @@
 Equivalent of the reference's Voronoi hydro mode — VoronoiDensityGrid's
 `set_grid_velocity`/`evolve` moving-mesh support
 (/root/reference/src/VoronoiDensityGrid.hpp:87-88, .cpp:205-290) plugged
-into the HydroIntegrator — redesigned for the TPU split used throughout the
+into the HydroIntegrator — redesigned for the host/device split used throughout the
 Voronoi family: *re-tessellation on the host* (scipy Qhull, like the
 reference's grid construction), *flux computation on device* over the padded
 cell-graph arrays.
@@ -25,7 +25,7 @@ Scheme (MUSCL Godunov, moving faces):
 * `evolve` drifts the generators with the grid velocity and re-tessellates;
   primitives are re-derived from the unchanged totals and the new volumes.
 
-Second order (VERDICT r3 ask #10): least-squares cell gradients over the
+Second order: least-squares cell gradients over the
 neighbor graph (evaluated at TRUE face polygon centroids — bisector
 midpoints sit off the face on irregular meshes) + Barth-Jespersen limiting
 with a 0.5 slope safety factor + per-face pair clamping + half-dt
@@ -52,6 +52,10 @@ import numpy as np
 
 from cmacionize_tpu.models.voronoi import VoronoiGrid, _tessellate
 from cmacionize_tpu.ops import riemann
+
+
+#: f32 contractions run at full f32 precision (never TF32 on GPUs)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class VoronoiHydroState(NamedTuple):
@@ -123,12 +127,13 @@ def _lsq_gradients(W, rel_pos, is_cell, dW):
         1.0 / jnp.maximum(jnp.sum(rel_pos * rel_pos, -1), 1e-30),
         0.0,
     )
-    G = jnp.einsum("ck,cka,ckb->cab", w, rel_pos, rel_pos)
+    G = jnp.einsum("ck,cka,ckb->cab", w, rel_pos, rel_pos, precision=_HIGHEST)
     # Tikhonov floor keeps degenerate stencils (boundary cells with < 3
     # independent directions) finite; their gradients limit toward zero
     tr = jnp.trace(G, axis1=1, axis2=2)[:, None, None]
     G = G + 1e-8 * jnp.maximum(tr, 1e-30) * jnp.eye(3)[None]
-    b = jnp.einsum("ck,cka->ca", w * jnp.where(is_cell, dW, 0.0), rel_pos)
+    b = jnp.einsum("ck,cka->ca", w * jnp.where(is_cell, dW, 0.0), rel_pos,
+                   precision=_HIGHEST)
     return jnp.linalg.solve(G, b[..., None])[..., 0]
 
 
@@ -177,9 +182,9 @@ def _voronoi_flux_update(
     def project(fx, fy, fz):
         v = jnp.stack([fx, fy, fz], -1)
         return (
-            jnp.einsum("ckd,ckd->ck", v, n),
-            jnp.einsum("ckd,ckd->ck", v, t1),
-            jnp.einsum("ckd,ckd->ck", v, t2),
+            jnp.einsum("ckd,ckd->ck", v, n, precision=_HIGHEST),
+            jnp.einsum("ckd,ckd->ck", v, t1, precision=_HIGHEST),
+            jnp.einsum("ckd,ckd->ck", v, t2, precision=_HIGHEST),
         )
 
     ones = jnp.ones_like(area_over_vol)
@@ -190,7 +195,7 @@ def _voronoi_flux_update(
         def limited_gradient(W):
             dW = gather(W) - W[:, None]
             g = _lsq_gradients(W, rel, is_cell, dW)
-            ext = jnp.einsum("cka,ca->ck", face_rel, g)
+            ext = jnp.einsum("cka,ca->ck", face_rel, g, precision=_HIGHEST)
             nbrW = jnp.where(is_cell, gather(W), W[:, None])
             Wmax = jnp.maximum(jnp.max(nbrW, 1), W)
             Wmin = jnp.minimum(jnp.min(nbrW, 1), W)
@@ -234,13 +239,14 @@ def _voronoi_flux_update(
         p_p = jnp.where(p_p > 0.0, p_p, p)
 
         def face_L(Wp, g):
-            return Wp[:, None] + jnp.einsum("cka,ca->ck", face_rel, g)
+            return Wp[:, None] + jnp.einsum(
+                "cka,ca->ck", face_rel, g, precision=_HIGHEST)
 
         def face_R(Wp, g):
             # the neighbor's arm to the shared face point: fp − g_j
             arm_j = face_rel - nbr_rel
             return gather(Wp) + jnp.einsum(
-                "cka,cka->ck", arm_j, gather(g))
+                "cka,cka->ck", arm_j, gather(g), precision=_HIGHEST)
 
         def pair_clamp(L, R, Wi, Wj):
             # per-face pair limiting (Hydro.hpp:108 ``limit``): face values
@@ -574,7 +580,7 @@ class VoronoiRHDSimulation:
             energy=jnp.asarray(arrays["energy"]),
         )
         self.neutral_fraction = jnp.asarray(arrays["neutral_fraction"])
-        self.key = jax.random.wrap_key_data(jnp.asarray(arrays["rng_key"]))
+        self.key = jnp.asarray(arrays["rng_key"])  # raw key, as PRNGKey makes
         self.time = float(scalars["time"])
 
     def _radiation(self, key):

@@ -3,7 +3,7 @@
  * Embeds a CPython interpreter (initialised lazily on the first cmi_init)
  * and forwards every call into cmacionize_tpu.cmi — the C surface of the
  * reference's CMILibrary (/root/reference/src/CMILibrary.cpp:46-95),
- * backed by the JAX/TPU compute path instead of the C++ simulation.
+ * backed by the JAX compute path instead of the C++ simulation.
  * Particle buffers cross the boundary zero-copy as memoryviews.
  */
 

@@ -5,7 +5,7 @@
  * the library once, then repeatedly hands over SPH particle arrays and
  * receives per-particle hydrogen neutral fractions.  The implementation
  * (cmi_c_library.c) embeds a CPython interpreter and dispatches into the
- * cmacionize_tpu.cmi module, so the full JAX/TPU compute path runs behind
+ * cmacionize_tpu.cmi module, so the full JAX compute path runs behind
  * a plain C ABI.
  *
  * Build (see cmacionize_tpu/native/__init__.py:build_cmi):

@@ -4,7 +4,7 @@
 // (/root/reference/src/SPHArrayInterface.cpp — M-over-V, centroid and
 // kernel-weighted mappings over an Octree neighbor search): the gridding of
 // large particle sets is host-side, branchy, scatter-heavy work that neither
-// the TPU nor numpy's add.at handle well, so it lives in C++ like the
+// XLA nor numpy's add.at handle well, so it lives in C++ like the
 // reference's does.  Exposed through ctypes (see native/__init__.py);
 // cmacionize_tpu.api falls back to a numpy implementation when the shared
 // library has not been built.

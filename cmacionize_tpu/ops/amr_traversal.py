@@ -1,6 +1,6 @@
 """Depth-independent photon traversal through a flattened AMR octree.
 
-TPU-native replacement for the reference's pointer-tree AMR traversal
+Array-based replacement for the reference's pointer-tree AMR traversal
 (`AMRDensityGrid::interact` descending AMRGridCell pointers,
 /root/reference/src/AMRDensityGrid.hpp:44-808, AMRGridCell.hpp): the
 hierarchy lives as two int32 tables (root lattice + children rows, built by

@@ -5,11 +5,11 @@ Equivalent of the reference's CrossSections hierarchy
 and FixedValueCrossSections; factory at
 /root/reference/src/CrossSectionsFactory.hpp:69-74).
 
-TPU-native design: cross sections are *tabulated once on the host* over a
+Design: cross sections are *tabulated once on the host* over a
 frequency grid into a [n_ion, n_freq] array; packets carry per-ion cross
 sections gathered/interpolated from this table at emission (the reference
 evaluates the analytic fits per photon,
-/root/reference/src/PhotonSource.cpp:189-256 — on TPU a table interpolation
+src/PhotonSource.cpp:189-256 — on an accelerator a table interpolation
 is one gather instead of a branchy transcendental evaluation).
 
 The fit evaluation itself (`verner_cross_section`) is vectorized numpy over

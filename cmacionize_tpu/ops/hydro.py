@@ -1,6 +1,6 @@
 """Finite-volume hydrodynamics: MUSCL-Hancock + HLLC on Cartesian grids.
 
-TPU-native equivalent of the reference's hydro integrators
+JAX equivalent of the reference's hydro integrators
 (/root/reference/src/HydroIntegrator.hpp:1170-1520 — classic grid — and
 /root/reference/src/Hydro.hpp:265-1246 + HydroDensitySubGrid sweeps — the
 task-based path).  The reference's per-face jobs and 18-task-per-subgrid DAG
@@ -364,7 +364,7 @@ def hydro_step_padded(
 
     Split out of :func:`hydro_step` so the domain-decomposed path can supply
     ghost cells via an ICI halo exchange (``ppermute`` of slab faces) instead
-    of local boundary-condition padding — the TPU equivalent of the
+    of local boundary-condition padding — the JAX equivalent of the
     reference's pairwise neighbor sweeps
     (`HydroDensitySubGrid::outer_gradient_sweep` /`outer_flux_sweep`,
     /root/reference/src/HydroDensitySubGrid.hpp:626,351).
@@ -531,7 +531,7 @@ def apply_hydro_mask(u: HydroState, mask, u_masked: HydroState) -> HydroState:
 class InternalHydroUnits(NamedTuple):
     """Round-off-minimizing unit system for the f32 hydro state.
 
-    TPU equivalent of /root/reference/src/InternalHydroUnits.hpp:100-180:
+    JAX equivalent of the reference's src/InternalHydroUnits.hpp:100-180:
     length/mass/time units derived from the box size, mean density and mean
     pressure put the working arrays at O(1), where f32 has its ~1e-7
     relative precision — essential for deep-contrast problems (bondi).

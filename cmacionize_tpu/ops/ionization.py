@@ -5,7 +5,7 @@ Physics follows the reference IonizationStateCalculator
 are normalized by jfac = L_tot / (W_tot · V_cell) into per-neutral-atom
 photoionization rates j_ion [s^-1], then the balance equations are solved per
 cell.  All solvers here are pure elementwise jnp functions, safe for f32 on
-TPU (the hydrogen solution is written in a cancellation-free form instead of
+an accelerator (the hydrogen solution is written in a cancellation-free form instead of
 the reference's two-branch Taylor fallback,
 /root/reference/src/IonizationStateCalculator.cpp:805-820).
 """
@@ -53,7 +53,7 @@ def normalize_mean_intensity(tally, luminosity, total_weight, cell_volume):
 
 def _tiny(x):
     """Division guard representable in the array's dtype (1e-300 collapses
-    to 0 in f32, where TPU flush-to-zero would defeat the guard)."""
+    to 0 in f32, where flush-to-zero would defeat the guard)."""
     return 1e-300 if x.dtype == jnp.float64 else 1e-30
 
 

@@ -6,7 +6,7 @@ ion follow from the statistical-equilibrium balance of collisional
 (de-)excitation and radiative decay (Osterbrock & Ferland 2006 §3.5); the
 radiated power per H atom is Σ n_i A_ij E_ij.
 
-TPU-native design: instead of a per-cell 5×5 Gaussian elimination
+Design: instead of a per-cell 5×5 Gaussian elimination
 (/root/reference/src/LineCoolingData.cpp:1492-1560), the level matrices for
 ALL cells and all 10 five-level ions are assembled as a single
 [..., 10, 5, 5] tensor and solved with one batched `jnp.linalg.solve` — the
@@ -222,8 +222,7 @@ def five_level_populations(T, ne, dtype=jnp.float64):
 def solve5x5(A, b):
     """Batched 5×5 linear solve by unrolled Gauss–Jordan with partial pivoting.
 
-    Pure elementwise/where ops — usable in f64 on TPU, where XLA's
-    LuDecomposition (hence jnp.linalg.solve) only supports f32.  Plays the
+    Pure elementwise/where ops over the whole batch, in any float dtype.  Plays the
     role of the reference's hand-rolled elimination
     (/root/reference/src/LineCoolingData.cpp:1492-1560), batched over all
     cells and ions at once.

@@ -1,6 +1,6 @@
 """Polarized dust scattering: Stokes-vector transport.
 
-TPU-native equivalent of the reference's polarization treatment in
+JAX equivalent of the reference's polarization treatment in
 DustScattering::scatter / scatter_towards
 (/root/reference/src/DustScattering.cpp:41-320), which implements the
 White (1979) scattering matrix with the Yusef-Zadeh, Morris & White (1984)

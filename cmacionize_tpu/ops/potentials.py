@@ -6,9 +6,9 @@ DiscPatch, CoredDMProfile) and of TreeSelfGravity
 (/root/reference/src/TreeSelfGravity.hpp).
 
 Design delta (documented): the reference computes self-gravity with a
-Barnes-Hut octree — a pointer-chasing structure that maps poorly onto the
-TPU.  Here periodic self-gravity is solved spectrally: one FFT Poisson solve
-(∇²Φ = 4πGρ → Φ_k = -4πG ρ_k / k²) runs entirely on the MXU/VPU and is both
+Barnes-Hut octree — a pointer-chasing structure that maps poorly onto
+vectorized hardware.  Here periodic self-gravity is solved spectrally: one FFT Poisson solve
+(∇²Φ = 4πGρ → Φ_k = -4πG ρ_k / k²) runs entirely on the device and is both
 faster and exact to the grid resolution.
 """
 

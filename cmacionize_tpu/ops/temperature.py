@@ -5,7 +5,7 @@ Equivalent of the reference's TemperatureCalculator
 photo-heating balances radiative cooling, with the ionization state of
 H/He/metals recomputed self-consistently at each trial temperature.
 
-TPU-native design: the reference's per-cell log-secant iteration with
+Design: the reference's per-cell log-secant iteration with
 bracketing evaluations at 0.9T/1.1T (:700-830) runs for ALL cells in lockstep
 inside one `lax.while_loop`; converged cells freeze via masking.  Each
 balance evaluation vectorizes the H–He fixed point, the closed-form metal
@@ -90,8 +90,8 @@ def cooling_heating_balance(
            (not applied after the fact): the secant uses gain/loss only in
            ratios, so a common scale cancels identically — but the f32
            device solve needs the 1e-40-class cooling coefficients lifted
-           into f32 range BEFORE they multiply anything (TPU flushes
-           subnormals to zero).  scale=1.0 reproduces f64 behavior exactly.
+           into f32 range BEFORE they multiply anything (f32 subnormals
+           may be flushed to zero).  scale=1.0 reproduces f64 behavior exactly.
 
     Returns BalanceResult (cf. compute_cooling_and_heating_balance,
     TemperatureCalculator.cpp:200-500).
@@ -322,7 +322,7 @@ def _secant_stage_jit(state, j, h, nd, abundances, *, pahfac, crfac,
 
 
 #: coefficient prefactor for the f32 device solve: lifts the 1e-40-class
-#: cooling coefficients into f32 normal range (TPU flushes subnormals);
+#: cooling coefficients into f32 normal range (subnormals may flush);
 #: gain and loss carry the SAME factor, and the secant uses them only in
 #: ratios and a relative convergence test, so the factor cancels exactly
 DEVICE_SOLVE_SCALE = 1.0e26
@@ -347,15 +347,15 @@ def solve_temperature_device(
     max_iterations: int = 100,
     minimum_ionized_temperature: float = 4000.0,
 ):
-    """f32-on-accelerator temperature solve (VERDICT r4 ask #4).
+    """float32 temperature solve (``TemperatureCalculator: backend:
+    f32-device``).
 
     Same algorithm as :func:`solve_temperature`, run in float32 with every
     gain/loss coefficient pre-scaled by :data:`DEVICE_SOLVE_SCALE` so no
     term leaves f32 range (the balance spans ~40 orders of magnitude in
     SI; the scale-invariance of the log-secant makes the reformulation
     exact up to f32 rounding).  Validated against the f64 goldens in
-    tests/test_temperature.py::TestDeviceSolve; accept/reject decision
-    recorded in BASELINE.md "Round-5 on-device f32 temperature solve".
+    tests/test_temperature.py::TestDeviceSolve.
 
     Returns (T, h0, he0, metals) in float32 on the default backend.
     """
@@ -389,10 +389,9 @@ def solve_temperature_device_chunked(
     """Fixed-chunk driver for :func:`solve_temperature_device`.
 
     One 2^15-cell chunk compiles once (cached by shape) and is reused for
-    every chunk of every iteration; 64³ grids fused into a single program
-    exceeded the TPU compile's constant-literal budget (the [n,10,5,5]
-    level-population workspaces), and chunking also bounds the live
-    workspace memory.  Per-cell results identical to the unchunked call
+    every chunk of every iteration; chunking bounds the live workspace
+    memory (the [n,10,5,5] level-population workspaces).  Per-cell results
+    identical to the unchunked call
     (the solve is embarrassingly per-cell).  Returns f32 arrays of
     T_init's shape."""
     shape = jnp.asarray(T_init).shape
@@ -454,8 +453,7 @@ def solve_temperature_compacted(
 
     The lockstep secant pads every cell to the worst-case trip count: one
     while iteration costs 3 full-grid balance evaluations even when a
-    fraction of cells remain unconverged (the host-CPU f64 wall of VERDICT
-    r3 weak #4).  This wrapper runs capped sweeps and, after each cap,
+    fraction of cells remain unconverged.  This wrapper runs capped sweeps and, after each cap,
     re-gathers the unconverged cells into the smallest sufficient
     power-of-two buffer whenever that at least halves the working width.
     The secant state tuple is explicitly resumable (see _secant_loop), so

@@ -6,7 +6,7 @@ k_min ≤ |k| ≤ k_max, with two solenoidal unit vectors e1 ⊥ e2 ⊥ k per mo
 and fresh random complex amplitudes every driving step (white in time), so
 that the mean injected power equals the configured value.
 
-TPU-native design: the per-cell per-mode triple loop of the reference
+Design: the per-cell per-mode triple loop of the reference
 (add_turbulent_forcing) becomes one einsum of the [n_modes, 3] amplitude
 table against precomputed [n_modes, n_cells] phase waves.
 """
@@ -128,10 +128,11 @@ class TurbulenceForcing:
         a_real, a_imag = self.sample_amplitudes(key)
         x = jnp.asarray(cell_centers, jnp.float32)  # [*grid, 3]
         k = jnp.asarray(self.k_table, jnp.float32)  # [n_modes, 3]
-        phase = 2.0 * np.pi * jnp.einsum("...d,md->...m", x, k)
-        force = jnp.einsum("...m,md->...d", jnp.cos(phase), a_real) - jnp.einsum(
-            "...m,md->...d", jnp.sin(phase), a_imag
-        )
+        hi = jax.lax.Precision.HIGHEST  # full f32, never TF32
+        phase = 2.0 * np.pi * jnp.einsum("...d,md->...m", x, k, precision=hi)
+        force = jnp.einsum(
+            "...m,md->...d", jnp.cos(phase), a_real, precision=hi
+        ) - jnp.einsum("...m,md->...d", jnp.sin(phase), a_imag, precision=hi)
         return force
 
 

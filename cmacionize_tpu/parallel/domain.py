@@ -1,7 +1,7 @@
 """Domain-decomposed Monte Carlo: grid slabs sharded over devices,
 photon packets exchanged over the interconnect.
 
-This is the TPU-native realization of the reference's *designed but never
+This is the JAX realization of the reference's *designed but never
 finished* distributed subgrid mode (SURVEY §2.7 P4: `DensitySubGrid::pack/
 unpack` MPI buffers, reserved TASKTYPE_SEND/RECV,
 /root/reference/src/DensitySubGrid.hpp:965-1057, Task.hpp:50-52):
@@ -41,7 +41,7 @@ def _compact(fields, mask, capacity):
     active [capacity], overflow) where ``overflow`` counts packets that did
     not fit in the buffer (the caller surfaces it — packets must never be
     dropped silently).  Uses a packed single-array sort (actives first,
-    stable) — ~3x cheaper than a general argsort on TPU.
+    stable) instead of a general argsort.
     """
     n = mask.shape[0]
     iota = jax.lax.iota(jnp.uint32, n)
@@ -84,7 +84,7 @@ def _device_slab_mc_loop(
     The exchange machinery of SURVEY §2.7 P4 shared by the ionization and
     RHD drivers.  Runs inside shard_map; ``my`` is the caller's axis index.
 
-    Two round-5 upgrades over the v1 loop (VERDICT r4 ask #1a/b):
+    Two upgrades over a plain exchange loop:
 
     * **source-slab replication** — every device emits and traces its own
       1/n_dev share of the emission through a psum-broadcast copy of the

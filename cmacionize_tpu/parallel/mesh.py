@@ -6,7 +6,7 @@ Replaces the reference's MPI communicator setup
 
 Axis conventions:
     "ph"  — photon-data parallelism (grid replicated, packets split; the
-            TPU equivalent of the reference's replicated-grid MPI mode,
+            JAX equivalent of the reference's replicated-grid MPI mode,
             /root/reference/src/IonizationSimulation.cpp:458-529)
     "x"   — spatial domain decomposition along the grid x axis (the
             equivalent of distributed subgrids, SURVEY §2.7 P4)

@@ -1,6 +1,6 @@
 """Photon data parallelism: replicated grid, packets sharded over devices.
 
-TPU-native equivalent of the reference's production MPI mode (grid replicated
+JAX equivalent of the reference's production MPI mode (grid replicated
 on every rank, photon count distributed, per-ion tallies Allreduce'd —
 /root/reference/src/IonizationSimulation.cpp:395-529,
 /root/reference/src/MPICommunicator.hpp:207-360): each device emits and

@@ -1,9 +1,9 @@
 """Per-iteration performance diagnostics.
 
-TPU-native equivalent of the reference's per-iteration ``diagnostics_XX.txt``
+JAX equivalent of the reference's per-iteration ``diagnostics_XX.txt``
 dumps (/root/reference/src/TaskBasedIonizationSimulation.cpp:969-1035).  The
 reference records queue/buffer/task occupancy because its throughput is set
-by scheduler contention; on TPU the analogues are the superstep structure of
+by scheduler contention; here the analogues are the superstep structure of
 the lockstep traversal — packets emitted / absorbed / escaped, packets
 exchanged between shards, and wall-clock per phase — which is exactly what
 the perf work needs to see per iteration.

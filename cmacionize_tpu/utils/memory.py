@@ -4,8 +4,8 @@ The reference's MemoryLogger records named allocation snapshots during the
 run and dumps them to ``memory.txt`` plus a timeline file
 (/root/reference/src/MemoryLogger.hpp, written at
 TaskBasedIonizationSimulation.cpp:406-410,568-574).  Host-side allocations
-here are numpy/python; device-side HBM usage is what actually matters on
-TPU, so each snapshot records BOTH the process RSS and (when the backend
+here are numpy/python; device-side memory is what actually matters on
+an accelerator, so each snapshot records BOTH the process RSS and (when the backend
 exposes it) per-device memory stats from jax.
 """
 

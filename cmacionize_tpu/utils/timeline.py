@@ -44,10 +44,16 @@ class TimeLine:
 
     def restore(self, time: float) -> None:
         """Re-enter the timeline mid-stream (restart resume, cf. the
-        reference's TimeLine restart constructor, TimeLine.hpp:227)."""
-        self._current = min(
-            int(round((time - self._t_begin) / self._tick)), self.TOTAL_TICKS
-        )
+        reference's TimeLine restart constructor, TimeLine.hpp:227).
+
+        A tick count within float rounding of a whole number of minimum
+        steps (of which every step is a power-of-two multiple) is snapped
+        to it, so rounding in ``time`` cannot leave a sliver step."""
+        ticks = (time - self._t_begin) / self._tick
+        steps = round(ticks / self._min_ticks)
+        if abs(ticks - steps * self._min_ticks) <= 1e-9 * self._min_ticks:
+            ticks = steps * self._min_ticks
+        self._current = min(int(round(ticks)), self.TOTAL_TICKS)
         remaining = self.TOTAL_TICKS - self._current
         if 0 < remaining < self._step_ticks:
             self._step_ticks = remaining

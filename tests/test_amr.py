@@ -275,8 +275,7 @@ class TestAccuracy:
 
 
 class TestOctree:
-    """Depth-independent octree traversal (VERDICT r3 ask #7 / PARITY
-    delta #4: deep AMR without the 8^max_level dense lattice)."""
+    """Depth-independent octree traversal."""
 
     def _refined_grid(self, n=8, max_level=2):
         scheme = amr.SpatialRefinement(
@@ -375,7 +374,7 @@ class TestOctree:
 
 
 class TestOctreeSpectral:
-    """Multi-frequency transport on deep AMR (VERDICT r4 missing #1): the
+    """Multi-frequency transport on deep AMR: the
     spectral octree march is wired into trace_amr_spectral for owner=None
     grids and matches the dense-expand path."""
 
@@ -522,7 +521,7 @@ class TestOctreeSpectral:
 
 
 class TestAMRRestart:
-    """Kill-and-resume for the AMR drivers (VERDICT r4 missing #5): the
+    """Kill-and-resume for the AMR drivers: the
     hierarchy is recorded as refined-coordinate lists, rebuilt exactly, and
     the RNG chain continues — resumed runs are bit-for-bit identical."""
 

@@ -226,7 +226,7 @@ def test_cell_trackers_reference_yaml_multifreq(tmp_path):
     """Typed trackers placed from a reference-format tracker file, driven
     through a small multifreq run with diffuse re-emission: all three
     PHOTONTYPE slots populate, absorption volumes are consistent with the
-    recorded path lengths (VERDICT r3 ask #6)."""
+    recorded path lengths."""
     from cmacionize_tpu.models import ions
     from cmacionize_tpu.models.multifreq_simulation import (
         MultiFreqConfig,
@@ -318,7 +318,7 @@ def test_cell_trackers_reference_yaml_multifreq(tmp_path):
 
 def test_live_output_manager_rhd_cadence(tmp_path):
     """LiveOutputManager writes numbered surface-density/PDF files on its
-    time cadence inside the RHD production loop (VERDICT r3 ask #6)."""
+    time cadence inside the RHD production loop."""
     from cmacionize_tpu.models.grid import GridGeometry
     from cmacionize_tpu.models.rhd_simulation import RHDConfig, RHDSimulation
     from cmacionize_tpu.models.trackers import LiveOutputManager

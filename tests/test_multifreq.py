@@ -111,9 +111,9 @@ def test_monochromatic_matches_h_only_driver():
 
 
 def test_f32_device_temperature_backend_matches_host():
-    """`TemperatureCalculator: backend: f32-device` (BASELINE.md round-5):
-    the accelerator-resident f32 solve must reproduce the f64-host
-    pipeline's temperature/ionization structure on a lexington-mini."""
+    """`TemperatureCalculator: backend: f32-device`: the f32 solve must
+    reproduce the f64 pipeline's temperature/ionization structure on a
+    lexington-mini."""
     import numpy as np
 
     from cmacionize_tpu.models.grid import GridGeometry

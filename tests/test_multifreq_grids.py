@@ -1,5 +1,5 @@
 """Multi-element ionization/temperature machinery on the AMR and Voronoi
-grid families (VERDICT r2 ask #5) — the reference runs its full pipeline on
+grid families — the reference runs its full pipeline on
 every grid type through the DensityGrid abstraction
 (/root/reference/src/AMRDensityGrid.hpp:44-808, VoronoiDensityGrid.cpp)."""
 

@@ -1,4 +1,4 @@
-"""Observability residue (VERDICT r2 ask #8): MemoryLogger named snapshots
+"""Observability residue: MemoryLogger named snapshots
 + timeline, RHD per-step diagnostics, checkify debug invariants in the
 traversal kernels."""
 

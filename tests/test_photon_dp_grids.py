@@ -4,7 +4,7 @@ The reference distributes its AMR and Voronoi grids only through the
 replicated-grid MPI mode of the classic driver (grid replicated per rank,
 photon count split, tallies Allreduce'd —
 /root/reference/src/IonizationSimulation.cpp:395-529); these tests exercise
-the TPU-native equivalent (parallel.photon_dp.make_{voronoi,amr}_dp_trace +
+the JAX equivalent (parallel.photon_dp.make_{voronoi,amr}_dp_trace +
 the drivers' ``mesh=`` mode) on the 8-virtual-device CPU mesh and check the
 converged state against the single-device drivers to MC noise.
 """

@@ -111,6 +111,9 @@ def test_rhd_restart_round_trip(tmp_path):
     sim2.advance(3, log_every=10**9)
 
     assert sim2.time == sim.time
+    # the restored key has the fresh key's type, so the resumed driver
+    # reuses the same compiled step instead of compiling another
+    assert sim2.key.dtype == sim.key.dtype and sim2.key.shape == sim.key.shape
     np.testing.assert_array_equal(
         np.asarray(sim.state.rho), np.asarray(sim2.state.rho)
     )
@@ -171,3 +174,20 @@ def test_stellar_feedback_fires_on_gated_hydro_steps():
     e1 = float(jnp.sum(sim.state.energy)) * cell_volume
     # the SN energy landed (reflective box conserves the rest)
     assert abs((e1 - e0) - e_sn) < 0.1 * e_sn, (e0, e1)
+
+
+def test_timeline_resume_snaps_float_rounding():
+    """Re-entering a timeline at a time that float rounding moved off a
+    step boundary (0.1 + 0.2 on a 0.15-step grid) lands on the boundary
+    and finishes in whole steps, with no sliver step."""
+    from cmacionize_tpu.utils.timeline import TimeLine
+
+    timeline = TimeLine(0.0, 0.6, 0.15, 0.15)
+    timeline.restore(0.1 + 0.2)
+    assert timeline._current % timeline._min_ticks == 0
+    steps = 0
+    while not timeline.finished:
+        timeline.set_timestep(0.15)
+        timeline.advance()
+        steps += 1
+    assert steps == 2

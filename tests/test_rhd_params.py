@@ -1,4 +1,4 @@
-"""Parameter-file-driven RHD physics wiring (VERDICT r2 ask #4): external
+"""Parameter-file-driven RHD physics wiring: external
 potentials, self-gravity, cooling, turbulence, masks, Bondi boundaries and
 time-dependent sources all selected from the parameter file, mirroring
 /root/reference/src/RadiationHydrodynamicsSimulation.cpp:250-392."""

@@ -205,8 +205,8 @@ def test_level_frequency_bins():
 
 
 def test_gadget_snapshot_source_distribution(tmp_path):
-    """GadgetSnapshot star-particle sources (VERDICT r3 missing #6;
-    GadgetSnapshotPhotonSourceDistribution.cpp:64-220): star particles
+    """GadgetSnapshot star-particle sources
+    (GadgetSnapshotPhotonSourceDistribution.cpp:64-220): star particles
     younger than the cutoff age become UV sources via the luminosity
     function; older ones are dropped."""
     import h5py
@@ -281,8 +281,8 @@ def test_gadget_snapshot_gas_sfr_sources(tmp_path):
 
 
 def test_bimodal_cross_sections_config():
-    """Bimodal cross sections (VERDICT r3 missing #6;
-    BimodalCrossSections.hpp): low/high per ion switching at the limit."""
+    """Bimodal cross sections (BimodalCrossSections.hpp): low/high per ion
+    switching at the limit."""
     from cmacionize_tpu.models import ions
     from cmacionize_tpu.models.multifreq_simulation import (
         MultiFreqConfig,

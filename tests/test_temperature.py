@@ -137,7 +137,7 @@ def test_compacted_solve_bitwise_identical():
 
 
 class TestDeviceSolve:
-    """f32-on-accelerator solve (VERDICT r4 ask #4): the scale-lifted f32
+    """f32-on-accelerator solve: the scale-lifted f32
     formulation must track the f64 goldens."""
 
     def test_balance_f32_scaled_matches_golden(self):
@@ -181,7 +181,7 @@ class TestDeviceSolve:
         assert np.asarray(T).dtype == np.float32
         # equilibrium T: with the tabulated-Omega fix the f32 secant lands
         # within 2e-3 of the Fortran-golden f64 answer (measured max
-        # 1.1e-4; the slack covers platform variation — BASELINE.md r5)
+        # 1.1e-4; the slack covers platform variation)
         np.testing.assert_allclose(np.asarray(T), T_exp, rtol=2e-3)
         np.testing.assert_allclose(
             np.asarray(h0), h0_exp, rtol=2e-2, atol=1e-6)

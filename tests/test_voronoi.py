@@ -221,7 +221,7 @@ class TestPhysics:
 
 
 class TestVoronoiRestart:
-    """Kill-and-resume for the Voronoi drivers (VERDICT r4 missing #5):
+    """Kill-and-resume for the Voronoi drivers:
     generator positions are the complete grid record; Qhull re-tessellates
     them deterministically, and the RNG chain continues bit-for-bit."""
 

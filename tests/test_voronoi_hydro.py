@@ -1,4 +1,4 @@
-"""Moving-mesh Voronoi hydrodynamics (VERDICT r2 ask #7): evolve /
+"""Moving-mesh Voronoi hydrodynamics: evolve /
 set_grid_velocity equivalents + the first-order moving-face Godunov scheme
 (/root/reference/src/VoronoiDensityGrid.hpp:87-88, .cpp:205-290)."""
 
@@ -200,7 +200,7 @@ def test_dtype_expansion_on_voronoi():
 
 def test_second_order_gradients_exact_on_linear_field():
     """The LSQ cell gradients recover a linear field's gradient exactly on
-    interior cells (VERDICT r3 ask #10: second-order Voronoi hydro)."""
+    interior cells."""
     rng = np.random.default_rng(8)
     L = 1.0e16
     geom = GridGeometry((0.0, 0.0, 0.0), (L, L, L), (1, 1, 1))

@@ -1,4 +1,4 @@
-"""Measure the sharded multifreq exchange volume (VERDICT r4 ask #7).
+"""Measure the sharded multifreq exchange volume.
 
 Question: does the x-slab decomposition of the multi-frequency driver move
 enough packet data over the interconnect that a 3D tiling (smaller surface
@@ -12,7 +12,7 @@ on the wire is 11 f32 fields + bool = 45 B.
 
 Usage:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        PYTHONPATH=/root/repo python tools/probe_multifreq_exchange_r5.py
+        PYTHONPATH=. python tools/probe_multifreq_exchange_r5.py
 """
 
 import os

@@ -8,12 +8,13 @@ at several generator counts, plus one Lloyd-relaxed build.
     python tools/time_voronoi.py
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cmacionize_tpu.models import voronoi  # noqa: E402
 from cmacionize_tpu.models.grid import GridGeometry  # noqa: E402
